@@ -1,13 +1,14 @@
-"""HyperGen-TPU: TPU-native genome sketching in hyperdimensional space.
+"""HyperGen in JAX: genome sketching in hyperdimensional space on accelerators.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of wh-xu/Hyper-Gen
 (Bioinformatics 2024): FracMinHash k-mer sampling, hyperdimensional (HDC)
 sketch encoding, and ANI estimation via dense hypervector dot products.
 
-Architecture (TPU-first, not a port):
+Architecture:
   - ``ops``      u64-as-2xu32 integer emulation, vectorized t1ha2 / wyrng /
                  mm_hash64, chunked canonical k-mer extraction, HV encoding,
-                 ANI matmuls (MXU int8-split path), Pallas kernels.
+                 exact ANI matmuls (int8 tensor-core split), Pallas kernels.
+  - ``backend``  the one table of per-backend path choices.
   - ``io``       FASTA reading + needletail-compatible normalization,
                  BitPacker8x-compatible HV compression, bincode-compatible
                  ``.sketch`` serialization, sharded sketch DB + manifest.

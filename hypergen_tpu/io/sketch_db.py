@@ -9,7 +9,7 @@ Two formats:
    usize as u64. This keeps sketches interoperable with the reference CLI in
    both directions.
 
-2. **Sharded DB + manifest** (`.hgdb/` directory) — the TPU-native layout for
+2. **Sharded DB + manifest** (`.hgdb/` directory) — the accelerator layout for
    multi-host search: HVs stored as one dense int16 matrix per shard
    (row-major, mmap-friendly) with norms and metadata in a JSON manifest.
    The reference has no equivalent (its single-file DB is all-or-nothing,
@@ -148,7 +148,7 @@ def _wrap_i32(x: int) -> int:
     return x - (1 << 32) if x >= (1 << 31) else x
 
 
-# --- sharded TPU-native DB ---------------------------------------------------
+# --- sharded DB -------------------------------------------------------------
 
 
 def append_db_shard(out_dir, db: "ShardedDB") -> None:

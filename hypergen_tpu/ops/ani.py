@@ -1,18 +1,18 @@
 """ANI estimation as dense HV matmuls (replaces the reference's pair loop).
 
 The reference computes each pair's dot product in a rayon thread loop
-(reference:src/dist.rs:267-291). On TPU the entire n_ref x n_query dot
-matrix is ONE matmul on the MXU. Exactness: the reference accumulates
-i16*i16 products into i32 with wrapping (reference:src/dist.rs:146-151); we
+(reference:src/dist.rs:267-291). On a device the entire n_ref x n_query
+dot matrix is ONE matmul. Exactness: the reference accumulates i16*i16
+products into i32 with wrapping (reference:src/dist.rs:146-151); we
 preserve that bit-exactly either with a direct int32 dot_general (CPU
-backend) or with a 4-way int8-split (TPU MXU path):
+backend) or with a 4-way int8-split (int8 tensor-core GEMMs on the GPU):
 
     v = 256*hi + (lo - 128) + 128,  hi = v >> 8 in [-128,127],
                                     lo = (v & 0xFF) - 128 in [-128,127]
     dot(r, q) = 65536*HH + 256*(HL + LH) + LL
               + 32768*(sum(RH) + sum(QH)) + 128*(sum(RL) + sum(QL)) + 16384*D
 
-All four matmuls are int8 x int8 -> int32 on the MXU; the splits are
+All four matmuls are int8 x int8 -> int32; the splits are
 value-preserving casts, so every downstream wrap is congruent mod 2^32 to
 the reference's wrapping i32 accumulation. (A naive sign-extended-low-byte
 split would need hi=128 for v in [32640, 32767], which int8 cannot hold.)
@@ -33,7 +33,7 @@ import numpy as np
 
 class SmallSplit(NamedTuple):
     """A resident operand pre-split for the 3-matmul "small" mode: int8
-    planes h, l and their (int8-exact) sum — one MXU pass fewer than the
+    planes h, l and their (int8-exact) sum — one int8 matmul fewer than the
     4-way split AND no per-query r-side elementwise work. Only valid when
     the operand passed the |v| <= SMALL_SPLIT_MAX check (caller-enforced,
     see presplit_rows_small)."""
@@ -79,7 +79,7 @@ def presplit_rows(r: jnp.ndarray):
     """Precompute a resident operand's int8 planes + row correction.
 
     The int16->int8 splitting is elementwise over the full operand and
-    dominates the dot's non-MXU time; for a device-resident DB reused
+    is elementwise work outside the matmuls; for a device-resident DB reused
     across many query tiles it should happen ONCE. Returns
     (hi int8 [M, D], lo int8 [M, D], row int32 [M]) consumed by
     dot_i16_presplit. Same bytes as the int16 original.
@@ -105,7 +105,7 @@ def dot_i16_presplit_small(r: SmallSplit, q: jnp.ndarray) -> jnp.ndarray:
     """3-matmul exact dot with the r side pre-split by presplit_rows_small.
 
     q must also satisfy |q| <= SMALL_SPLIT_MAX (callers route here only
-    after checking both sides, mirroring _resolve_mxu)."""
+    after checking both sides, mirroring _resolve_split)."""
     qh, ql = _split_small(q)
 
     def d(a, b):
@@ -152,18 +152,18 @@ def dot_i16_presplit(
     )
 
 
-def dot_i16_exact(r: jnp.ndarray, q: jnp.ndarray, use_mxu=True) -> jnp.ndarray:
+def dot_i16_exact(r: jnp.ndarray, q: jnp.ndarray, int8_split=True) -> jnp.ndarray:
     """Int32 [M, N] dot matrix of int16 HVs r [M, D], q [N, D].
 
     Bit-exact (mod 2^32) vs. the reference's wrapping i32 accumulation.
-    use_mxu: False = direct int32 dot_general (CPU); True = 4-way int8
+    int8_split: False = direct int32 dot_general (CPU); True = 4-way int8
     split (any int16 values); "small" = 3-matmul Karatsuba int8 split —
-    25% fewer MXU passes, valid ONLY when every |value| <= SMALL_SPLIT_MAX
+    25% fewer int8 matmuls, valid ONLY when every |value| <= SMALL_SPLIT_MAX
     (caller-checked):  dot = 4096*HH + 64*(MM - HH - LL) + LL with
     M = H + L, all three operand planes int8. Wrapping int32 combination
     keeps the mod-2^32 congruence.
     """
-    if use_mxu == "small":
+    if int8_split == "small":
         rh, rl = _split_small(r)
         qh, ql = _split_small(q)
 
@@ -178,7 +178,7 @@ def dot_i16_exact(r: jnp.ndarray, q: jnp.ndarray, use_mxu=True) -> jnp.ndarray:
         ll = d(rl, ql)
         mm = d(rh + rl, qh + ql)
         return (hh << 12) + ((mm - hh - ll) << 6) + ll
-    if use_mxu:
+    if int8_split:
         # one home for the 4-way split + mod-2^32 correction math: split
         # the r side via presplit_rows and reuse the presplit combine
         return dot_i16_presplit(*presplit_rows(r), q)
@@ -218,42 +218,42 @@ def ani_from_dot_matrix(
     return ani * jnp.float32(100.0)
 
 
-@functools.partial(jax.jit, static_argnames=("use_mxu",))
-def dot_i16_any(r, q: jnp.ndarray, use_mxu=True) -> jnp.ndarray:
+@functools.partial(jax.jit, static_argnames=("int8_split",))
+def dot_i16_any(r, q: jnp.ndarray, int8_split=True) -> jnp.ndarray:
     """dot_i16_exact that also accepts a presplit r: a SmallSplit (3-matmul
     resident planes) or a (hi, lo, row) 4-way-split tuple.
 
-    A SmallSplit r with use_mxu != "small" (a rare over-bound query batch
+    A SmallSplit r with int8_split != "small" (a rare over-bound query batch
     against a small-resident DB) rebuilds the exact int16 rows on device
     (x = 64*h + l, lossless by construction of _split_small) and takes the
     requested mode — correctness never depends on the resident layout."""
     if isinstance(r, SmallSplit):
-        if use_mxu == "small":
+        if int8_split == "small":
             return dot_i16_presplit_small(r, q)
         x = (
             64 * r.h.astype(jnp.int32) + r.l.astype(jnp.int32)
         ).astype(jnp.int16)
-        return dot_i16_exact(x, q, use_mxu=use_mxu)
+        return dot_i16_exact(x, q, int8_split=int8_split)
     if isinstance(r, tuple):
         return dot_i16_presplit(*r, q)
-    return dot_i16_exact(r, q, use_mxu=use_mxu)
+    return dot_i16_exact(r, q, int8_split=int8_split)
 
 
-@functools.partial(jax.jit, static_argnames=("ksize", "use_mxu"))
+@functools.partial(jax.jit, static_argnames=("ksize", "int8_split"))
 def ani_matrix(
     r_hv: jnp.ndarray,
     norm2_r: jnp.ndarray,
     q_hv: jnp.ndarray,
     norm2_q: jnp.ndarray,
     ksize: int,
-    use_mxu: bool = True,
+    int8_split: bool = True,
 ) -> jnp.ndarray:
     """Full [M, N] ANI%% matrix from int16 HVs (r_hv may be presplit)."""
-    dot = dot_i16_any(r_hv, q_hv, use_mxu=use_mxu)
+    dot = dot_i16_any(r_hv, q_hv, int8_split=int8_split)
     return ani_from_dot_matrix(dot, norm2_r, norm2_q, ksize)
 
 
-@functools.partial(jax.jit, static_argnames=("ksize", "k_top", "use_mxu"))
+@functools.partial(jax.jit, static_argnames=("ksize", "k_top", "int8_split"))
 def ani_topk(
     r_hv: jnp.ndarray,
     norm2_r: jnp.ndarray,
@@ -261,7 +261,7 @@ def ani_topk(
     norm2_q: jnp.ndarray,
     ksize: int,
     k_top: int,
-    use_mxu: bool = True,
+    int8_split: bool = True,
 ):
     """Per-query top-k (ANI, ref index, exact dot) — the `search` primitive.
 
@@ -272,14 +272,14 @@ def ani_topk(
     The reference's `search` subcommand is an unimplemented stub
     (reference:src/main.rs:22-24); this realizes it as dist-with-top-k.
     """
-    dot = dot_i16_any(r_hv, q_hv, use_mxu=use_mxu)  # [M, N] exact int32
+    dot = dot_i16_any(r_hv, q_hv, int8_split=int8_split)  # [M, N] exact int32
     ani = ani_from_dot_matrix(dot, norm2_r, norm2_q, ksize)
     vals, idx = jax.lax.top_k(ani.T, k_top)  # [N, k_top]
     dots = jnp.take_along_axis(dot.T, idx, axis=1)
     return vals, idx.astype(jnp.int32), dots
 
 
-@functools.partial(jax.jit, static_argnames=("ksize", "cap", "use_mxu"))
+@functools.partial(jax.jit, static_argnames=("ksize", "cap", "int8_split"))
 def dot_threshold_compact(
     r_hv: jnp.ndarray,
     norm2_r: jnp.ndarray,
@@ -288,7 +288,7 @@ def dot_threshold_compact(
     threshold: jnp.ndarray,
     ksize: int,
     cap: int,
-    use_mxu: bool = True,
+    int8_split: bool = True,
 ):
     """Dot tile + ANI-threshold filter + compaction, all on device.
 
@@ -306,7 +306,7 @@ def dot_threshold_compact(
     count > cap, flat_idx int32 [cap] (-1 padding), dot int32 [cap]).
     r_hv may be a presplit (hi, lo, row) tuple from presplit_rows.
     """
-    dot = dot_i16_any(r_hv, q_hv, use_mxu=use_mxu)
+    dot = dot_i16_any(r_hv, q_hv, int8_split=int8_split)
     ani = ani_from_dot_matrix(dot, norm2_r, norm2_q, ksize)
     keep = ani >= (threshold.astype(jnp.float32) - jnp.float32(0.01))
     M, N = dot.shape

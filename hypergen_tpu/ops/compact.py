@@ -56,12 +56,12 @@ def block_extract(
 ) -> Tuple[U64, jnp.ndarray, jnp.ndarray]:
     """Scatter-free sparse compaction: masked-max slot extraction.
 
-    TPUs hate per-element scatters; FracMinHash survivors are sparse
+    No per-element scatter: FracMinHash survivors are sparse
     (~1/scaled). Split positions into blocks of `block`; each block holds at
     most `slots` survivors (with huge probability for block/scaled << slots —
     verified via the returned counts, never assumed). The s-th survivor of a
     block is extracted with a masked max-reduce — exactly one lane matches
-    rank s, so max() IS selection, and everything stays dense VPU work.
+    rank s, so max() IS selection, and everything stays dense elementwise work.
 
     h, keep: [..., P] with P % block == 0. Returns
       (out: U64 [..., nb*slots] — sentinel U64_MAX in empty slots,

@@ -51,7 +51,7 @@ def _csa_block_counts(
     dim order as _expand_bits (word i -> dims i*64+j, lo bits j<32 first).
 
     Instead of expanding every word to hv_d int8 bit lanes and widening to
-    int32 (~5 VPU ops per hash*dim), the block axis is reduced with bitwise
+    int32 (~5 vector ops per hash*dim), the block axis is reduced with bitwise
     full adders on the packed u32 words: level t of the tree merges pairs of
     t-bit bit-sliced counters at ~5 ops per plane, so the whole reduction
     costs ~sum(5t/2^t) ~ 10 ops per hash per u32 plane (~0.3 ops per

@@ -1,4 +1,4 @@
-"""Chunked canonical k-mer extraction and hashing (shape-static, VPU-friendly).
+"""Chunked canonical k-mer extraction and hashing (shape-static, fusion-friendly).
 
 Replaces the reference's two inner loops — needletail's canonical_kmers
 iterator (CPU path, reference:src/sketch.rs:89-95) and the CUDA per-thread

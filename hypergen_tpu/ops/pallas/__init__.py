@@ -1,1 +1,2 @@
-"""Pallas TPU kernels for the hot loops, with XLA fallbacks elsewhere."""
+"""Pallas GPU kernels (Triton route) for the hot loops; the XLA paths they
+replace stay as the reference and the CPU path."""

@@ -1,71 +1,59 @@
-"""Fused canonical k-mer + t1ha2 + FracMinHash Pallas kernel (HOT LOOP 1).
+"""Fused sketch front half as one Pallas kernel for Hopper (Triton route).
 
-The XLA formulation (ops.kmers) builds each k-mer window from k shifted
-slices, materializing O(k) chunk-sized temporaries — HBM-bandwidth-bound at
-~140 Mbp/s on v5e. This kernel is the TPU-native redesign:
+The XLA formulation (ops.kmers via models.sketcher's unfused step) writes a
+byte per base, stacked chunk copies with k-1 halos, and a hash and keep
+mask for every position to device memory. This kernel reads the genome as
+packed 2-bit words and writes only the FracMinHash survivors:
 
-  - the chunk is split across the 8x128 VPU cells: each cell owns a
-    contiguous subsequence of Lsub positions (+ k-1 halo), the vector
-    analog of the reference CUDA thread decomposition
-    (reference:src/cuda_kernel.cu:29-40);
-  - a fori_loop walks the subsequences one base per step, carrying rolling
-    state in registers/VMEM: 2-bit fwd/rc k-mers (canonical strand by
-    numeric compare, equivalent to bytewise strcmp for ACGT), rolling
-    little-endian ASCII byte windows for both strands (the exact t1ha2
-    input layout), and a valid-run counter (N-reset semantics,
-    reference:src/cuda_kernel.cu:277-296);
-  - t1ha2 runs entirely in-register on u64-as-2xu32 pairs (ops.hashes);
-  - output is one [Lsub, 8, 128] u32-pair store per step — survivors carry
-    their hash, everything else the sentinel U64_MAX (never a legal
-    survivor, since keep requires h < threshold <= U64_MAX).
+  - every cell owns a contiguous run of lsub k-mer starts (+ a k-1 halo)
+    and is one GPU thread, the decomposition of the reference CUDA kernel
+    (reference:src/cuda_kernel.cu:29-40); cells form power-of-two blocks
+    (one program per block);
+  - a loop walks the cell's positions one base per step, carrying the
+    rolling state in registers: 2-bit fwd/rc k-mers (canonical strand by
+    numeric compare, equivalent to bytewise strcmp for ACGT), and the
+    little-endian ASCII byte windows of both strands (the exact t1ha2
+    input layout);
+  - t1ha2 runs on u64-as-2xu32 pairs (ops.hashes), the same math as the
+    XLA path;
+  - survivors fill `cap` per-cell register slots with their chunk-local
+    position, written once at the end. The true count is emitted as well,
+    so slot overflow is detected and retried by the caller, never dropped.
 
-The only HBM traffic is the code read and the hash write.
+Invalid bases are not read: every position is hashed optimistically and
+the caller repairs false survivors exactly with its sparse invalid-run
+postfilter (models.sketcher.filter_positions_by_runs).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from hypergen_tpu.ops import u64 as u
 from hypergen_tpu.ops.hashes import mm_hash64, t1ha2_atonce_words
 from hypergen_tpu.ops.kmers import _ascii_from_code
 from hypergen_tpu.ops.u64 import U64
 
-CELLS = 1024  # default: 8 sublanes x 128 lanes (one VREG per op)
+# cells per program: one thread per cell at BLOCK // 32 warps
+BLOCK = 128
 _SENT = np.uint32(0xFFFFFFFF)
-
-# Wider tiles trade halo redundancy for instruction-level parallelism: at
-# cells=1024 every op touches exactly one VREG, so the long t1ha2 dependency
-# chain is latency-bound; at cells=4096 each op spans 4 VREGs, giving the
-# VPU 4 independent lanes of the chain to overlap. The k-1 warmup steps are
-# re-done per cell, so wider also means proportionally more halo work.
-# Post-unroll (r3) the kernel is VPU-issue-bound, and the r4 chip sweep
-# (profile_kernel_cells.py A/B/B/A at C=2^17, k=21) moved the sweet spot to
-# 2048 (hash stage 5.91-5.98 ms vs 7.05-7.16 at 4096, 6.33 at 1024): two
-# VREGs of ILP suffice once issue slots are the constraint, and lsub=64
-# halves the halo share (38% -> 24% of hash evals). Preference order lives
-# in models/sketcher.packed_cells(). Re-checked after the r5 warm-split
-# (halo positions now cost 73 ops, so 4096's duplication penalty fell to
-# ~3%): 2048 still wins the A/B/B/A — kernel 4.59/4.61 ms vs 4.99/5.69 at
-# 4096 — so the residual gap is loop/latency structure, not halo ops.
 
 
 def _roll_window(st, cb, *, ksize, method):
     """Window-maintenance half of one rolling step: shift the incoming base
     into the 2-bit fwd/rc keys and (t1ha2) the ASCII byte windows. No hash —
     the k-1 warm-up positions per cell need only this (~1/6 the ops of the
-    full step), so the kernels run it bare until the first full window.
+    full step), so the kernel runs it bare until the first full window.
 
     st = (f2, r2, fw, rw): 2-bit fwd/rc keys (U64) + fwd/rc ASCII u32
-    words. cb: uint32 (sub, 128) 2-bit base code of the incoming position.
-    Returns st'.
+    words. cb: uint32 2-bit base code of the incoming position (one per
+    cell). Returns st'.
     """
     k = ksize
     n_u32 = (k + 3) // 4
@@ -143,10 +131,9 @@ def _hash_window(st, shape, *, ksize, seed, canonical, method):
 
 
 def _advance_hash(st, cb, *, ksize, seed, canonical, method):
-    """One full rolling-window step, shared by BOTH kernels (the
-    parity-critical t1ha2/mmhash window math must exist exactly once):
-    locals in, locals out, so callers can unroll several positions between
-    VMEM round trips. Returns (st', h)."""
+    """One full rolling-window step (the parity-critical t1ha2/mmhash
+    window math exists exactly once): locals in, locals out. Returns
+    (st', h)."""
     st = _roll_window(st, cb, ksize=ksize, method=method)
     h = _hash_window(
         st, cb.shape, ksize=ksize, seed=seed, canonical=canonical,
@@ -155,209 +142,109 @@ def _advance_hash(st, cb, *, ksize, seed, canonical, method):
     return st, h
 
 
-def _rolling_kernel(codes_ref, out_hi_ref, out_lo_ref, state_ref, *, ksize,
-                    seed, threshold, canonical, method, lsub, sub):
-    # state_ref rows: 0 run, 1-2 f2 (hi, lo), 3-4 r2 (hi, lo),
-    # 5..5+n_u32 fwd ASCII words, then n_u32 rc ASCII words.
-    # Rolling state lives in VMEM scratch rather than fori_loop carries:
-    # Mosaic rejects mixing splat-constant (replicated-layout) carries with
-    # computed vectors across loop iterations.
-    k = ksize
-    n_u32 = (k + 3) // 4
-    state_ref[:] = jnp.zeros_like(state_ref)
+def _packed_kernel(pos_end_ref, words_ref, slot_hi_ref, slot_lo_ref,
+                   slot_pos_ref, cnt_ref, *, ksize, seed, threshold,
+                   canonical, method, lsub, cells, n_chunks, row_words, cap,
+                   unroll):
+    """One program = BLOCK cells of one chunk; one cell per thread.
 
-    def load_state():
-        return (
-            U64(state_ref[1], state_ref[2]),
-            U64(state_ref[3], state_ref[4]),
-            [state_ref[5 + q] for q in range(n_u32)],
-            [state_ref[5 + n_u32 + q] for q in range(n_u32)],
-        )
-
-    def store_state(run, st):
-        f2, r2, fw, rw = st
-        state_ref[0] = run.astype(jnp.uint32)
-        state_ref[1], state_ref[2] = f2.hi, f2.lo
-        state_ref[3], state_ref[4] = r2.hi, r2.lo
-        if method == "t1ha2":
-            for q in range(n_u32):
-                state_ref[5 + q] = fw[q]
-                state_ref[5 + n_u32 + q] = rw[q]
-
-    def step(t):
-        run = state_ref[0].astype(jnp.int32)
-        c = codes_ref[0, t].astype(jnp.uint32)
-        valid = c < 4
-        cb = c & np.uint32(3)
-        run = jnp.where(valid, run + 1, 0)
-        return run, cb
-
-    # warm-up: window fill only — the first k-1 positions never store
-    def warm_body(t, _):
-        run, cb = step(t)
-        store_state(run, _roll_window(
-            load_state(), cb, ksize=ksize, method=method))
-        return None
-
-    jax.lax.fori_loop(0, k - 1, warm_body, None)
-
-    def body(t, _):
-        run, cb = step(t)
-        st, h = _advance_hash(
-            load_state(), cb, ksize=ksize, seed=seed, canonical=canonical,
-            method=method,
-        )
-        keep = (run >= k) & u.lt_const(h, threshold)
-        out_hi_ref[0, t - (k - 1)] = jnp.where(keep, h.hi, _SENT)
-        out_lo_ref[0, t - (k - 1)] = jnp.where(keep, h.lo, _SENT)
-        store_state(run, st)
-        return None
-
-    jax.lax.fori_loop(k - 1, lsub + k - 1, body, None)
-
-
-def _rolling_packed_kernel(pos_end_ref, words_ref, slot_hi_ref, slot_lo_ref,
-                           slot_pos_ref, cnt_ref, state_ref, *, ksize, seed,
-                           threshold, canonical, method, lsub, sub, cap,
-                           unroll=1):
-    """Fully-fused sketch front half: packed 2-bit words in, survivor slots out.
-
-    Differences from _rolling_kernel (the codes-in/hashes-out variant):
-      - input is u32 words holding 16 packed bases each — the kernel unpacks
-        in-register, so HBM sees 2 bits/position instead of 32;
-      - no validity input: every position is hashed optimistically (invalid
-        regions carry arbitrary 2-bit garbage) and false survivors are
-        repaired *exactly* by the caller's sparse run-overlap postfilter —
-        optimistic dense compute + exact sparse repair is the TPU-native
-        replacement for the reference's per-position run counter
-        (reference:src/cuda_kernel.cu:277-296);
-      - positions past the genome's k-mer count are masked via a per-chunk
-        SMEM scalar (kills the all-'A' padding tail, whose single repeated
-        hash could otherwise flood the slots);
-      - survivors compact into `cap` per-cell VMEM slots right here (their
-        chunk-local position rides along for the postfilter), so HBM output
-        is ~cap/lsub of a position-dense hash array. Like the reference GPU
-        slot design (reference:src/cuda_kernel.cu:316) but with the true
-        count emitted — overflow is detected and retried, never dropped.
-
-    Loop structure matches _rolling_kernel (fori_loop, rolling state in VMEM
-    scratch — see the Mosaic relayout note there): the only input change is
-    that each step extracts its base from the current packed word with a
-    dynamic shift instead of loading a byte.
+    words_ref: u32 [B * row_words] flat packed rows (16 bases per word).
+    pos_end_ref: i32 [B * n_chunks] k-mer starts per chunk (positions at or
+    past it are the padding tail and never survive).
+    Outputs are flat [B * n_chunks * cap * cells] slot planes and the
+    per-cell survivor count [B * n_chunks * cells].
     """
     k = ksize
     n_u32 = (k + 3) // 4
-    T = lsub + k - 1
-
-    for s in range(cap):
-        slot_hi_ref[0, s] = jnp.full((sub, 128), _SENT, jnp.uint32)
-        slot_lo_ref[0, s] = jnp.full((sub, 128), _SENT, jnp.uint32)
-        slot_pos_ref[0, s] = jnp.full((sub, 128), -1, jnp.int32)
-    cnt_ref[0, 0] = jnp.zeros((sub, 128), dtype=jnp.int32)
-    state_ref[:] = jnp.zeros_like(state_ref)
-    pos_end = pos_end_ref[pl.program_id(0)]  # scalar-prefetch SMEM array
-    cell_base = (
-        jax.lax.broadcasted_iota(jnp.int32, (sub, 128), 0) * 128
-        + jax.lax.broadcasted_iota(jnp.int32, (sub, 128), 1)
-    ) * lsub
+    lw = lsub // 16
+    bpc = cells // BLOCK
+    pid = pl.program_id(0)
+    chunk = pid // bpc  # row * n_chunks + chunk index within the row
+    blk = pid - chunk * bpc
+    row = chunk // n_chunks
+    ci = chunk - row * n_chunks
+    cell = blk * BLOCK + jax.lax.broadcasted_iota(jnp.int32, (BLOCK,), 0)
+    # each cell reads its own words directly: [word0, word0 + T_w)
+    word0 = row * row_words + ci * (cells * lw) + cell * lw
+    pos_end = pos_end_ref[chunk]
+    cell_base = cell * lsub
 
     def fetch(t):
-        """Base code of position t: dynamic shift out of the packed word
-        (vs _rolling_kernel's byte load)."""
-        w = words_ref[0, t // 16]
-        shift = (np.uint32(2) * (t % 16).astype(jnp.uint32))
-        return (w >> shift) & np.uint32(3)
+        w = words_ref[word0 + (t >> 4)]
+        return (w >> ((t & 15) * 2).astype(jnp.uint32)) & np.uint32(3)
 
-    def roll(st, t):
-        """Warm-up step: window maintenance only. The first k-1 positions
-        per cell exist solely to fill the rolling window (their hashes were
-        always discarded — the old full-body-with-masked-emit form spent
-        ~5/6 of the per-position ops computing them); skipping the t1ha2
-        chain here cuts ~20% of kernel ops at lsub=64, bit-identically."""
-        return _roll_window(st, fetch(t), ksize=ksize, method=method)
-
-    def advance(st, t):
-        """One full rolling-window step: st = (f2, r2, fw, rw) locals ->
-        (st, h). Pure in locals so the loop body can unroll several
-        positions per fori_loop iteration, amortizing the VMEM state
-        load/store. The window math itself is the shared _advance_hash."""
-        return _advance_hash(
-            st, fetch(t), ksize=ksize, seed=seed, canonical=canonical,
-            method=method,
-        )
-
-    def emit(h, t):
+    def emit(h, t, slots, cnt):
         # t >= k-1 always holds here: warm-up positions never reach emit
         pos = cell_base + (t - (k - 1))
         keep = u.lt_const(h, threshold) & (pos < pos_end)
-        cnt = cnt_ref[0, 0]
+        s_hi, s_lo, s_pos = slots
         for s in range(cap):
             put = keep & (cnt == s)
-            slot_hi_ref[0, s] = jnp.where(put, h.hi, slot_hi_ref[0, s])
-            slot_lo_ref[0, s] = jnp.where(put, h.lo, slot_lo_ref[0, s])
-            slot_pos_ref[0, s] = jnp.where(put, pos, slot_pos_ref[0, s])
-        cnt_ref[0, 0] = cnt + keep.astype(jnp.int32)
+            s_hi[s] = jnp.where(put, h.hi, s_hi[s])
+            s_lo[s] = jnp.where(put, h.lo, s_lo[s])
+            s_pos[s] = jnp.where(put, pos, s_pos[s])
+        return (s_hi, s_lo, s_pos), cnt + keep.astype(jnp.int32)
 
-    def load_state():
-        # state rows: 0-1 f2 (hi, lo), 2-3 r2 (hi, lo),
-        # 4..4+n_u32 fwd ASCII words, then n_u32 rc ASCII words
-        return (
-            U64(state_ref[0], state_ref[1]),
-            U64(state_ref[2], state_ref[3]),
-            [state_ref[4 + q] for q in range(n_u32)],
-            [state_ref[4 + n_u32 + q] for q in range(n_u32)],
-        )
+    z = jnp.zeros((BLOCK,), jnp.uint32)
+    st = (U64(z, z), U64(z, z), [z] * n_u32, [z] * n_u32)
 
-    def store_state(st):
-        f2, r2, fw, rw = st
-        state_ref[0], state_ref[1] = f2.hi, f2.lo
-        state_ref[2], state_ref[3] = r2.hi, r2.lo
-        if method == "t1ha2":
-            for q in range(n_u32):
-                state_ref[4 + q] = fw[q]
-                state_ref[4 + n_u32 + q] = rw[q]
+    # warm-up: the first k-1 positions only fill the window (roll, no hash)
+    def warm_body(t, st):
+        return _roll_window(st, fetch(t), ksize=ksize, method=method)
 
-    # warm-up: the first k-1 positions only fill the window (roll, no hash).
-    # Unroll with the largest divisor <= the main-loop unroll so interpret
-    # mode (unroll=1) stays single-step and traced bodies stay small.
-    warm = k - 1
-    if warm:
-        wu = max((d for d in range(1, unroll + 1) if warm % d == 0),
-                 default=1)
+    st = jax.lax.fori_loop(0, k - 1, warm_body, st)
 
-        def warm_body(i, _):
-            st = load_state()
-            for j in range(wu):
-                st = roll(st, i * wu + j)
-            store_state(st)
-            return None
+    # main loop: lsub full positions, every one of which may emit
+    def steps(carry, t0, n):
+        st, slots, cnt = carry
+        for j in range(n):
+            t = t0 + j
+            st, h = _advance_hash(
+                st, fetch(t), ksize=ksize, seed=seed, canonical=canonical,
+                method=method,
+            )
+            slots, cnt = emit(h, t, slots, cnt)
+        return st, slots, cnt
 
-        jax.lax.fori_loop(0, warm // wu, warm_body, None)
-        if warm % wu:
-            st = load_state()
-            for t in range(warm - warm % wu, warm):
-                st = roll(st, jnp.asarray(t, jnp.int32))
-            store_state(st)
+    slots = (
+        [jnp.full((BLOCK,), _SENT, jnp.uint32)] * cap,
+        [jnp.full((BLOCK,), _SENT, jnp.uint32)] * cap,
+        [jnp.full((BLOCK,), -1, jnp.int32)] * cap,
+    )
+    cnt = jnp.zeros((BLOCK,), jnp.int32)
+    carry = jax.lax.fori_loop(
+        0, lsub // unroll,
+        lambda i, c: steps(c, (k - 1) + i * unroll, unroll),
+        (st, slots, cnt),
+    )
+    # tail of lsub % unroll positions (t kept traced, like the loop's)
+    tail = lsub % unroll
+    _, (s_hi, s_lo, s_pos), cnt = steps(
+        carry, jnp.int32(k - 1 + lsub - tail), tail
+    )
+    for s in range(cap):
+        out = (chunk * cap + s) * cells + cell
+        slot_hi_ref[out] = s_hi[s]
+        slot_lo_ref[out] = s_lo[s]
+        slot_pos_ref[out] = s_pos[s]
+    cnt_ref[chunk * cells + cell] = cnt
 
-    # main loop: lsub full positions, every one of which emits
-    def body(i, _):
-        st = load_state()
-        for j in range(unroll):
-            t = warm + i * unroll + j
-            st, h = advance(st, t)
-            emit(h, t)
-        store_state(st)
-        return None
 
-    jax.lax.fori_loop(0, lsub // unroll, body, None)
-    # tail for lsub % unroll steps (t wrapped so advance/emit see traced ints)
-    if lsub % unroll:
-        st = load_state()
-        for t in range(lsub - lsub % unroll, lsub):
-            tt = jnp.asarray(warm + t, jnp.int32)
-            st, h = advance(st, tt)
-            emit(h, tt)
-        store_state(st)
+def packed_cells(chunk_positions: int) -> int:
+    """Cells per chunk for the packed kernel (lsub = C / cells k-mer starts
+    per thread), 0 when C does not fit the kernel's layout.
+
+    lsub is a multiple of 16 (whole packed words per cell) and the cell
+    count a multiple of BLOCK. lsub = 64 is preferred: the k-1 warm-up is
+    re-done by every cell (24% of the steps at k=21), and at the
+    production bucket (B=8 x 32 chunks of 2^17) it still launches 512k
+    threads — about two waves of 132 SMs at full occupancy. Outputs are
+    bit-identical for every legal value."""
+    for lsub in (64, 128, 32, 16):
+        cells, rem = divmod(chunk_positions, lsub)
+        if rem == 0 and cells >= BLOCK and cells % BLOCK == 0:
+            return cells
+    return 0
 
 
 @functools.partial(
@@ -366,7 +253,7 @@ def _rolling_packed_kernel(pos_end_ref, words_ref, slot_hi_ref, slot_lo_ref,
                      "threshold", "canonical", "method", "interpret", "cells",
                      "cap", "unroll"),
 )
-def hash_packed_rows_pallas(
+def hash_packed_rows(
     packed_words: jnp.ndarray,
     n_pos: jnp.ndarray,
     n_chunks: int,
@@ -377,7 +264,7 @@ def hash_packed_rows_pallas(
     canonical: bool = True,
     method: str = "t1ha2",
     interpret: bool = False,
-    cells: int = CELLS,
+    cells: int = 0,
     cap: int = 4,
     unroll: int = 0,
 ):
@@ -385,134 +272,71 @@ def hash_packed_rows_pallas(
 
     packed_words: u32 [B, W] — per-genome 2-bit base codes, 16 per word
       (position p at bits [2*(p%16), +2) of word p//16). Rows must cover
-      n_chunks*chunk_positions positions plus >= 2 slack words (invalid /
-      padding regions may hold arbitrary bits).
+      n_chunks*chunk_positions positions plus the last cell's halo words
+      (invalid / padding regions may hold arbitrary bits).
     n_pos: i32 [B] — k-mer positions per genome; positions >= n_pos are
       masked in-kernel (everything below is postfiltered by the caller
       against the genome's invalid-run list).
+    cells: cells per chunk (0 = packed_cells(chunk_positions)).
 
     Returns (h: U64 [B, S], pos: i32 [B, S] genome-global k-mer start,
-    valid: bool [B, S], cell_max: i32 [B]) with S = n_chunks*cells*cap.
-    Empty slots carry the U64_MAX sentinel / pos -1. cell_max > cap means
-    slot overflow: retry with a larger cap (exactness is never traded).
+    valid: bool [B, S], cell_max: i32 [B]) with S = n_chunks*cap*cells in
+    [chunk, slot, cell] order. Empty slots carry the U64_MAX sentinel /
+    pos -1. cell_max > cap means slot overflow: retry with a larger cap
+    (exactness is never traded).
 
-    unroll: positions hashed per main-loop fori_loop trip (0 = auto). Pure
-    scheduling — outputs are bit-identical for every value (pinned in
-    tests/test_pallas_kernel.py). Unrolling keeps the ~16 VMEM rolling-state
-    rows in registers across `unroll` positions; the r3 chip sweep
-    (scripts/profile_kernel_unroll.py) had deep unroll winning by ~1 ms per
-    B=8 x 4.19 Mbp batch over unroll=1. The main loop covers the lsub
-    emitting positions only — the k-1 warm-up positions run a separate
-    roll-only loop (73 vs 701 lane-ops/position, scripts/
-    audit_kernel_ops.py), cutting ~20% of kernel issue slots at lsub=64.
-    Auto picks the largest divisor of lsub up to 16 (exactly 16 in
-    production, where lsub is a multiple of 16) and resolves to 1 under
-    interpret=True (no VMEM to amortize; the fatter trace just slows tests).
+    unroll: positions per main-loop trip (0 = auto: 4 on the GPU, 1 in
+    interpret mode, where a fatter trace only slows the tests); a
+    remainder of lsub % unroll runs as a tail after the loop. Pure
+    scheduling — outputs are bit-identical for every value.
     """
     B, W = packed_words.shape
     C = chunk_positions
-    if cells % 128 != 0:
-        raise ValueError(f"cells {cells} must be a multiple of 128")
-    if C % cells != 0 or (C // cells) % 16 != 0:
+    cells = cells or packed_cells(C)
+    if not cells or cells % BLOCK or C % cells or (C // cells) % 16:
         raise ValueError(
-            f"chunk positions {C} must be a multiple of 16*cells ({16 * cells})"
+            f"chunk positions {C} / cells {cells}: need cells a multiple of "
+            f"{BLOCK} and C/cells a multiple of 16"
         )
-    sub = cells // 128
     lsub = C // cells
     if unroll == 0:
-        if interpret:
-            unroll = 1  # interpret mode (tests) gains nothing, traces 2x slower
-        else:
-            # main loop runs lsub positions (warm-up is its own roll-only
-            # loop); lsub is always a multiple of 16 here (validated above),
-            # so auto lands on 16 with no tail
-            unroll = max(
-                (d for d in range(1, 17) if lsub % d == 0), default=1
-            )
-            # shallow best divisor: deep unroll + tail still wins — the r3
-            # chip sweep had u13 beating u4 by 0.35 ms per batch, and the
-            # tail costs one extra partial trip
-            if unroll < 8:
-                unroll = min(13, lsub)
+        unroll = 1 if interpret else 4
     T_w = -(-(lsub + ksize - 1) // 16)
     iw, lw = C // 16, lsub // 16
     if W < n_chunks * iw + T_w - lw:
         raise ValueError(
             f"packed row too short: {W} words < {n_chunks * iw + T_w - lw}"
         )
-
-    # word relayout: chunk i, cell c reads words [i*iw + c*lw, +T_w), i.e.
-    # cw[:, i, d, c] = words[:, i*iw + c*lw + d]. Planes d < lw are ONE
-    # XLA transpose [nc, cells, lw] -> [nc, lw, cells]; halo planes
-    # d >= lw equal plane d-lw of cell c+1, i.e. the flat plane shifted by
-    # one cell (a concat-slice), with the final cell fed from the slack
-    # words past the last chunk. Measured 0.17 ms vs 1.1-2.1 ms for the r2
-    # T_w-stride-lw-slice formulation (scripts/profile_relayout.py) —
-    # strided slices lower near-scalar on TPU, transposes tile well.
-    base = packed_words[:, : n_chunks * iw].reshape(B, n_chunks, cells, lw)
-    P = jnp.transpose(base, (0, 1, 3, 2))  # [B, nc, lw, cells]
-    planes = [P[:, :, d] for d in range(min(lw, T_w))]
-    if T_w > lw:
-        flat = jnp.transpose(base, (0, 3, 1, 2)).reshape(
-            B, lw, n_chunks * cells
-        )
-        for d in range(lw, T_w):
-            # plane d == flat plane (d % lw) shifted by d // lw cells;
-            # the final cells wrap into the slack words past the chunks
-            s_cells, rem = divmod(d, lw)
-            tail = jax.lax.slice(
-                packed_words,
-                (0, n_chunks * iw + rem),
-                (B, n_chunks * iw + rem + (s_cells - 1) * lw + 1),
-                (1, lw),
-            )  # s_cells slack words nc*iw + j*lw + rem
-            shifted = jnp.concatenate(
-                [flat[:, rem, s_cells:], tail], axis=1
-            )
-            planes.append(shifted.reshape(B, n_chunks, cells))
-    cw = jnp.stack(planes, axis=2)  # [B, nc, T_w, cells]
-    cw = cw.reshape(B * n_chunks, T_w, sub, 128)
     pos_end = jnp.clip(
         n_pos[:, None] - np.arange(n_chunks, dtype=np.int32)[None, :] * C,
         0, C,
     ).reshape(B * n_chunks).astype(jnp.int32)
 
     kern = functools.partial(
-        _rolling_packed_kernel,
+        _packed_kernel,
         ksize=ksize, seed=seed, threshold=threshold, canonical=canonical,
-        method=method, lsub=lsub, sub=sub, cap=cap, unroll=unroll,
+        method=method, lsub=lsub, cells=cells, n_chunks=n_chunks,
+        row_words=W, cap=cap, unroll=unroll,
     )
     BN = B * n_chunks
+    S = n_chunks * cap * cells
     slot_hi, slot_lo, slot_pos, cnt = pl.pallas_call(
         kern,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(BN,),
-            in_specs=[
-                pl.BlockSpec((1, T_w, sub, 128), lambda i, *_: (i, 0, 0, 0)),
-            ],
-            out_specs=[
-                pl.BlockSpec((1, cap, sub, 128), lambda i, *_: (i, 0, 0, 0)),
-                pl.BlockSpec((1, cap, sub, 128), lambda i, *_: (i, 0, 0, 0)),
-                pl.BlockSpec((1, cap, sub, 128), lambda i, *_: (i, 0, 0, 0)),
-                pl.BlockSpec((1, 1, sub, 128), lambda i, *_: (i, 0, 0, 0)),
-            ],
-            scratch_shapes=[
-                pltpu.VMEM(
-                    (4 + 2 * ((ksize + 3) // 4), sub, 128), jnp.uint32
-                ),
-            ],
-        ),
+        grid=(BN * (cells // BLOCK),),
         out_shape=[
-            jax.ShapeDtypeStruct((BN, cap, sub, 128), jnp.uint32),
-            jax.ShapeDtypeStruct((BN, cap, sub, 128), jnp.uint32),
-            jax.ShapeDtypeStruct((BN, cap, sub, 128), jnp.int32),
-            jax.ShapeDtypeStruct((BN, 1, sub, 128), jnp.int32),
+            jax.ShapeDtypeStruct((B * S,), jnp.uint32),
+            jax.ShapeDtypeStruct((B * S,), jnp.uint32),
+            jax.ShapeDtypeStruct((B * S,), jnp.int32),
+            jax.ShapeDtypeStruct((BN * cells,), jnp.int32),
         ],
+        backend="triton",
+        compiler_params=plt.CompilerParams(
+            num_warps=BLOCK // 32, num_stages=1
+        ),
         interpret=interpret,
-    )(pos_end, cw)
+        name="hg_packed_sketch",
+    )(pos_end, packed_words.reshape(B * W))
 
-    S = n_chunks * cap * cells
     h = U64(slot_hi.reshape(B, S), slot_lo.reshape(B, S))
     # genome-global position: slot pos is chunk-local; add chunk_idx*C
     chunk_off = np.repeat(
@@ -526,86 +350,3 @@ def hash_packed_rows_pallas(
     )
     cell_max = jnp.max(cnt.reshape(B, -1), axis=-1)
     return h, pos, valid, cell_max
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("ksize", "seed", "threshold", "canonical", "method",
-                     "interpret", "cells"),
-)
-def hash_chunks_pallas(
-    chunk_codes: jnp.ndarray,
-    ksize: int,
-    seed: int,
-    threshold: int,
-    canonical: bool = True,
-    method: str = "t1ha2",
-    interpret: bool = False,
-    cells: int = CELLS,
-) -> Tuple[U64, jnp.ndarray]:
-    """Drop-in fused replacement for ops.kmers.hash_kmer_positions.
-
-    chunk_codes: uint8 [nc, C + k - 1] with C % cells == 0.
-    Returns (hash U64 [nc, C], keep bool [nc, C]) — identical contract to
-    the XLA path, validated bit-exactly in tests. cells must be a multiple
-    of 128 (VPU lane count); see the CELLS note on the ILP tradeoff.
-    """
-    nc, width = chunk_codes.shape
-    C = width - (ksize - 1)
-    if cells % 128 != 0:
-        raise ValueError(f"cells {cells} must be a multiple of 128")
-    if C % cells != 0:
-        raise ValueError(f"chunk positions {C} must be a multiple of {cells}")
-    sub = cells // 128
-    lsub = C // cells
-    T = lsub + ksize - 1
-
-    # cell-major relayout: cell c owns positions [c*lsub, (c+1)*lsub) plus a
-    # k-1 halo — cell_codes[t, c] = chunk_codes[c*lsub + t]
-    idx = (
-        np.arange(T, dtype=np.int32)[:, None]
-        + np.arange(cells, dtype=np.int32)[None, :] * lsub
-    )  # [T, cells]; max index = (cells-1)*lsub + T-1 = C + k - 2  (in range)
-    cell_codes = jnp.take(chunk_codes, jnp.asarray(idx), axis=1)
-    cell_codes = cell_codes.reshape(nc, T, sub, 128).astype(jnp.int32)
-
-    kern = functools.partial(
-        _rolling_kernel,
-        ksize=ksize,
-        seed=seed,
-        threshold=threshold,
-        canonical=canonical,
-        method=method,
-        lsub=lsub,
-        sub=sub,
-    )
-    out_hi, out_lo = pl.pallas_call(
-        kern,
-        grid=(nc,),
-        in_specs=[
-            pl.BlockSpec((1, T, sub, 128), lambda i: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, lsub, sub, 128), lambda i: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, lsub, sub, 128), lambda i: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((nc, lsub, sub, 128), jnp.uint32),
-            jax.ShapeDtypeStruct((nc, lsub, sub, 128), jnp.uint32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((5 + 2 * ((ksize + 3) // 4), sub, 128), jnp.uint32),
-        ],
-        interpret=interpret,
-    )(cell_codes)
-
-    # back to position-major [nc, C]: position p = c*lsub + t
-    def unlayout(x):
-        return x.reshape(nc, lsub, cells).transpose(0, 2, 1).reshape(nc, C)
-
-    h = U64(unlayout(out_hi), unlayout(out_lo))
-    keep = ~((h.hi == _SENT) & (h.lo == _SENT))
-    return h, keep

@@ -1,6 +1,6 @@
-"""Vectorized u64 arithmetic as (hi, lo) uint32 pairs for TPU.
+"""Vectorized u64 arithmetic as (hi, lo) uint32 pairs.
 
-TPU vector units have no 64-bit integer ops; the reference's hash stack
+JAX runs with 32-bit types by default; the reference's hash stack
 (t1ha2 / wyrng / mm_hash64 / FracMinHash threshold) is pure 64-bit integer
 math. This module provides exact wrapping u64 semantics on top of uint32
 lanes, with multiplies decomposed to 16-bit limbs (the same decomposition

@@ -1,11 +1,11 @@
 """Multi-device / multi-host parallelism.
 
 The reference is a single-process tool whose only parallelism is rayon
-thread pools over files/pairs (SURVEY §2.3). The TPU-native equivalents:
+thread pools over files/pairs (SURVEY §2.3). The device-mesh equivalents:
 
   - mesh axes ``(db, q)``: the sketch DB is sharded across ``db`` (model/DB
     parallelism), query batches across ``q`` (data parallelism);
-  - ANI search = local MXU matmul per shard + per-shard top-k + ``all_gather``
+  - ANI search = local exact-dot matmul per shard + per-shard top-k + ``all_gather``
     over ``db`` + merged top-k (parallel.search);
   - sketching is data-parallel over genomes/chunks across the whole mesh;
   - multi-host via ``jax.distributed.initialize`` (parallel.mesh), with

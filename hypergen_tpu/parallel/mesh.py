@@ -64,7 +64,8 @@ def maybe_init_distributed() -> None:
 
       HG_NUM_PROCESSES=N HG_PROCESS_ID=i HG_COORDINATOR=host:port  explicit
       HG_DIST=1   jax.distributed.initialize() environment auto-detection
-                  (TPU pod launchers set the required variables)
+                  (cluster launchers such as SLURM set the required
+                  variables)
 
     No-op otherwise: single-host runs must not pay a coordinator wait."""
     import os

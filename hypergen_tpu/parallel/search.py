@@ -3,7 +3,7 @@
 The BASELINE north star: reference sketch DB sharded across devices/hosts,
 query batches streamed data-parallel, per-shard top hits merged with
 all_gather. Realizes the reference's unimplemented `search` subcommand
-(reference:src/main.rs:22-24) at TPU scale.
+(reference:src/main.rs:22-24) at multi-device scale.
 
 Layout on a (db, q) mesh:
   db_hv   [M, D] int16  sharded P('db', None)
@@ -11,9 +11,9 @@ Layout on a (db, q) mesh:
   q_hv    [N, D] int16  sharded P('q', None)   (replicated along db)
   q_norm  [N]    int32  sharded P('q')
 
-Each device computes its local [M/db, N/q] ANI tile on the MXU, reduces to a
+Each device computes its local [M/db, N/q] exact-dot ANI tile, reduces to a
 per-query local top-k, all_gathers the tiny [k] candidates over the db axis
-(ICI-friendly: k*ndb << M), and merges. Output is sharded over q and
+(k*ndb << M, so the collective is small), and merges. Output is sharded over q and
 replicated over db.
 """
 
@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from hypergen_tpu.backend import caps
 from hypergen_tpu.ops.ani import ani_from_dot_matrix, dot_i16_exact
 from hypergen_tpu.parallel.mesh import AXIS_DB, AXIS_Q, make_mesh
 
@@ -36,10 +37,10 @@ log = logging.getLogger("hypergen")
 
 
 def _local_search(db_hv, db_norm, q_hv, q_norm, *, ksize: int, k_top: int,
-                  use_mxu: bool):
+                  int8_split: bool):
     """Per-shard body (runs under shard_map)."""
     m_local = db_hv.shape[0]
-    dot = dot_i16_exact(db_hv, q_hv, use_mxu=use_mxu)  # [m_l, n_l] exact i32
+    dot = dot_i16_exact(db_hv, q_hv, int8_split=int8_split)  # [m_l, n_l] exact i32
     ani = ani_from_dot_matrix(dot, db_norm, q_norm, ksize)
     vals, idx = jax.lax.top_k(ani.T, min(k_top, m_local))  # [n_l, k']
     dots = jnp.take_along_axis(dot.T, idx, axis=1)
@@ -64,16 +65,16 @@ def _local_search(db_hv, db_norm, q_hv, q_norm, *, ksize: int, k_top: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _search_fn(mesh: Mesh, ksize: int, k_top: int, use_mxu: bool):
+def _search_fn(mesh: Mesh, ksize: int, k_top: int, int8_split: bool):
     """The jitted shard_map search program (shared by all entry points).
 
     Memoized: a fresh jit(shard_map(...)) object per call would miss pjit's
-    cache and re-trace/re-load the program every tile — tens of seconds per
-    tile on remote-compile backends (same pattern as seqpar._seqpar_fn)."""
+    cache and re-trace the program every tile (same pattern as
+    seqpar._seqpar_fn)."""
     return jax.jit(
         jax.shard_map(
             functools.partial(
-                _local_search, ksize=ksize, k_top=k_top, use_mxu=use_mxu
+                _local_search, ksize=ksize, k_top=k_top, int8_split=int8_split
             ),
             mesh=mesh,
             in_specs=(P(AXIS_DB, None), P(AXIS_DB), P(AXIS_Q, None), P(AXIS_Q)),
@@ -104,7 +105,7 @@ def sharded_topk_search(
     q_norm: np.ndarray,
     ksize: int,
     k_top: int,
-    use_mxu: bool | None = None,
+    int8_split: bool | None = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Top-k ANI search of queries against a device-sharded DB.
 
@@ -114,13 +115,13 @@ def sharded_topk_search(
     dot [N, k_top] exact int32 dots for the winners — the TSV path feeds
     these through the host float chain for dist-identical values).
     """
-    use_mxu = _resolve_mxu(use_mxu, db_hv, q_hv)
+    int8_split = _resolve_split(int8_split, db_hv, q_hv)
     ndb = mesh.shape[AXIS_DB]
     nq = mesh.shape[AXIS_Q]
     M, N = db_hv.shape[0], q_hv.shape[0]
     Mp = -(-M // ndb) * ndb
     Np = -(-N // nq) * nq
-    fn = _search_fn(mesh, ksize, k_top, use_mxu)
+    fn = _search_fn(mesh, ksize, k_top, int8_split)
     sh = lambda spec: NamedSharding(mesh, spec)
     args = (
         jax.device_put(_pad_rows(db_hv, Mp), sh(P(AXIS_DB, None))),
@@ -138,7 +139,7 @@ def multihost_topk_search(
     q_norm: np.ndarray,
     ksize: int,
     k_top: int,
-    use_mxu: bool | None = None,
+    int8_split: bool | None = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Pod-scale DB search: every host loads ONLY its devices' DB rows.
 
@@ -159,8 +160,8 @@ def multihost_topk_search(
 
     from hypergen_tpu.io.sketch_db import load_db_rows
 
-    if use_mxu is None:
-        use_mxu = jax.default_backend() == "tpu"
+    if int8_split is None:
+        int8_split = caps().dot_mode
     manifest = json.loads((_Path(db_dir) / "manifest.json").read_text())
     M, D = manifest["n_genomes"], manifest["hv_d"]
     devices = jax.devices()
@@ -188,7 +189,7 @@ def multihost_topk_search(
     q_dev = jax.device_put(q_hv, sh(P(AXIS_Q, None)))
     qn_dev = jax.device_put(q_norm, sh(P(AXIS_Q)))
 
-    fn = _search_fn(mesh, ksize, k_top, use_mxu)
+    fn = _search_fn(mesh, ksize, k_top, int8_split)
     ani_g, idx_g, dot_g = fn(db_hv, db_norm, q_dev, qn_dev)
     # outputs are replicated (q axis is 1, db-merged): read the local copy
     ani = np.asarray(ani_g.addressable_data(0))
@@ -205,27 +206,27 @@ def _pad_rows(a: np.ndarray, rows: int) -> np.ndarray:
     return out
 
 
-def _resolve_mxu(use_mxu, *hv_arrays):
+def _resolve_split(int8_split, *hv_arrays):
     """None -> backend default; True -> upgrade to the 3-matmul "small"
     split when every HV value fits (single-host only: the mode is a static
     compile flag, so multihost callers must agree without communicating)."""
     from hypergen_tpu.ops.ani import SMALL_SPLIT_MAX, abs_bound
 
-    if use_mxu is None:
-        use_mxu = jax.default_backend() == "tpu"
-    if use_mxu is True and all(
+    if int8_split is None:
+        int8_split = caps().dot_mode
+    if int8_split is True and all(
         abs_bound(a) <= SMALL_SPLIT_MAX for a in hv_arrays
     ):
         return "small"
-    return use_mxu
+    return int8_split
 
 
-@functools.partial(jax.jit, static_argnames=("ksize", "k_top", "use_mxu"))
+@functools.partial(jax.jit, static_argnames=("ksize", "k_top", "int8_split"))
 def _topk_tile_merge(db_tile, dbn_tile, q, qn, run_v, run_i, run_d, offset,
-                     ksize: int, k_top: int, use_mxu: bool):
+                     ksize: int, k_top: int, int8_split: bool):
     from hypergen_tpu.ops.ani import ani_topk
 
-    v, i, d = ani_topk(db_tile, dbn_tile, q, qn, ksize, k_top, use_mxu=use_mxu)
+    v, i, d = ani_topk(db_tile, dbn_tile, q, qn, ksize, k_top, int8_split=int8_split)
     cv = jnp.concatenate([run_v, v], axis=1)
     ci = jnp.concatenate([run_i, i + offset], axis=1)
     cd = jnp.concatenate([run_d, d], axis=1)
@@ -245,16 +246,16 @@ def local_topk_search_tiled(
     ksize: int,
     k_top: int,
     tile_m: int = 8192,
-    use_mxu: bool | None = None,
+    int8_split: bool | None = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Single-device top-k over a DB larger than one ANI matrix dispatch.
 
     Streams DB row tiles through a running on-device top-k merge, so peak
-    memory is O(tile_m x N) instead of O(M x N) — the single-chip analog of
+    memory is O(tile_m x N) instead of O(M x N) — the single-device analog of
     the sharded pod search (a 500k-genome DB at D=4096 is 4 GB of HVs but
     would need a 500k x n_q float matrix in one shot).
     """
-    use_mxu = _resolve_mxu(use_mxu, db_hv, q_hv)
+    int8_split = _resolve_split(int8_split, db_hv, q_hv)
     import jax.numpy as _jnp
 
     tile_m = max(tile_m, k_top)  # top_k needs >= k_top candidates per tile
@@ -269,7 +270,7 @@ def local_topk_search_tiled(
         tn = _pad_rows(db_norm[mi : mi + tile_m], tile_m)
         run_v, run_i, run_d = _topk_tile_merge(
             _jnp.asarray(tile), _jnp.asarray(tn), q_dev, qn_dev,
-            run_v, run_i, run_d, _jnp.int32(mi), ksize, k_top, use_mxu,
+            run_v, run_i, run_d, _jnp.int32(mi), ksize, k_top, int8_split,
         )
     ani = np.asarray(run_v)
     idx = np.asarray(run_i)
@@ -291,7 +292,7 @@ def sharded_topk_search_tiled(
     ksize: int,
     k_top: int,
     tile_m: int,
-    use_mxu: bool | None = None,
+    int8_split: bool | None = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Multi-device top-k over a DB too large for one sharded dispatch.
 
@@ -303,11 +304,11 @@ def sharded_topk_search_tiled(
 
     Queries upload once and stay device-resident; every tile pads to the
     same tile_m so ONE compiled program serves the whole loop (a
-    different-shaped last tile would cost an extra remote compile), and
-    use_mxu resolves once over the full arrays so the split mode cannot
+    different-shaped last tile would cost an extra compile), and
+    int8_split resolves once over the full arrays so the split mode cannot
     flip between tiles.
     """
-    use_mxu = _resolve_mxu(use_mxu, db_hv, q_hv)
+    int8_split = _resolve_split(int8_split, db_hv, q_hv)
     ndb = mesh.shape[AXIS_DB]
     nq = mesh.shape[AXIS_Q]
     M, N = db_hv.shape[0], q_hv.shape[0]
@@ -316,7 +317,7 @@ def sharded_topk_search_tiled(
     sh = lambda spec: NamedSharding(mesh, spec)
     q_dev = jax.device_put(_pad_rows(q_hv, Np), sh(P(AXIS_Q, None)))
     qn_dev = jax.device_put(_pad_rows(q_norm, Np), sh(P(AXIS_Q)))
-    fn = _search_fn(mesh, ksize, k_top, use_mxu)
+    fn = _search_fn(mesh, ksize, k_top, int8_split)
     run_v = np.full((N, k_top), -np.inf, dtype=np.float32)
     run_i = np.zeros((N, k_top), dtype=np.int32)
     run_d = np.zeros((N, k_top), dtype=np.int32)

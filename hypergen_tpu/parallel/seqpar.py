@@ -3,8 +3,8 @@
 The reference handles arbitrary genome length by chunking 512 k-mers per
 CUDA thread with a k-1 halo (reference:src/cuda_kernel.cu:31,39-40) — all on
 one device. Here the same chunk decomposition shards across the device mesh
-(SURVEY §5 long-context row), so a genome too large for one chip's sketch
-bucket still sketches, and sketching latency for huge genomes scales with
+(SURVEY §5 long-context row), so a genome too large for one device's
+sketch bucket still sketches, and sketching latency for huge genomes scales with
 device count.
 
 Pipeline under shard_map over a 1-D ``seq`` mesh axis:
@@ -66,25 +66,14 @@ def _local_sketch(
     canonical: bool,
     method: str,
     encode_block: int,
-    use_pallas: bool = False,
-    pallas_interpret: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Per-device body (runs under shard_map on the ``seq`` axis)."""
     nc_local, _ = chunks.shape
     C = chunks.shape[1] - (ksize - 1)
-    if use_pallas and C % 128 == 0:
-        from hypergen_tpu.ops.pallas.hash_kernel import hash_chunks_pallas
-
-        cells = 4096 if C % 4096 == 0 else (1024 if C % 1024 == 0 else 128)
-        h, keep = hash_chunks_pallas(
-            chunks, ksize, seed, threshold, canonical=canonical,
-            method=method, cells=cells, interpret=pallas_interpret,
-        )
-    else:
-        h, keep = hash_kmer_positions(
-            chunks, ksize, seed=seed, threshold=threshold,
-            canonical=canonical, method=method,
-        )
+    h, keep = hash_kmer_positions(
+        chunks, ksize, seed=seed, threshold=threshold,
+        canonical=canonical, method=method,
+    )
     h = U64(h.hi.reshape(1, nc_local * C), h.lo.reshape(1, nc_local * C))
     keep = keep.reshape(1, nc_local * C)
     if extract_block:
@@ -169,19 +158,14 @@ def sketch_codes_seqpar(
     chunk_positions: int = 1 << 17,
     extract_block: int = 512,
     encode_block: int = 512,
-    use_pallas: bool | None = None,
-    pallas_interpret: bool = False,
 ) -> Dict[str, object]:
     """Sketch ONE genome with its chunk axis sharded over the mesh.
 
     Returns {"hv": int16 [D], "norm2": int, "n_hashes": int} — bit-identical
     to Sketcher.sketch_codes on a single device (asserted in
-    tests/test_parallel.py). use_pallas (default: on TPU) runs the fused
-    rolling kernel per shard instead of the XLA hash path.
+    tests/test_parallel.py).
     """
     params.validate()
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
     if mesh is None:
         mesh = make_seq_mesh()
     n_seq = mesh.devices.size
@@ -215,8 +199,6 @@ def sketch_codes_seqpar(
             canonical=params.canonical,
             method=params.sketch_method,
             encode_block=encode_block,
-            use_pallas=bool(use_pallas),
-            pallas_interpret=bool(pallas_interpret),
         )
         hv, norm2, n_hashes, max_count = jax.device_get(
             fn(jax.device_put(chunks, sharding))

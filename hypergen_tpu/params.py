@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
+from typing import Optional
 
 VERSION = "0.1.0"
 
@@ -62,7 +63,7 @@ class SketchParams:
     out_file: Path = Path()
     sketch_method: str = "t1ha2"
     canonical: bool = True
-    device: str = "tpu"
+    device: Optional[str] = None  # -D: "gpu", "cpu" or JAX's default
     ksize: int = 21
     seed: int = 123
     scaled: int = 1500
@@ -86,7 +87,7 @@ class SketchParams:
             # default/example) uses k <= 32.
             raise ValueError(
                 f"ksize must be in [1, 32], got {self.ksize}: this "
-                "TPU-native build packs each canonical k-mer into one "
+                "build packs each canonical k-mer into one "
                 "64-bit 2-bit-encoded key on device; the reference CPU "
                 "path allows larger k (see PARITY.md, known divergences)"
             )

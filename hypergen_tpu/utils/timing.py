@@ -2,7 +2,7 @@
 
 The reference only logs end-to-end times (reference:src/sketch.rs:60-65,
 reference:src/dist.rs:57-62); this adds named stage spans and optional
-jax.profiler trace capture for TPU performance work.
+jax.profiler trace capture for device performance work.
 """
 
 from __future__ import annotations

@@ -42,15 +42,15 @@ def _lengths(k: int):
 
 def _make_sketcher(path: str, p: SketchParams) -> Sketcher:
     if path == "runs":
-        return Sketcher(p, chunk_positions=C, batch=1, use_pallas=False)
+        return Sketcher(p, chunk_positions=C, batch=1, packed=False)
     if path == "mask":
         # run_cap=-1 rejects even an empty run list -> dense-mask fallback
         return Sketcher(
-            p, chunk_positions=C, batch=1, use_pallas=False, run_cap=-1
+            p, chunk_positions=C, batch=1, packed=False, run_cap=-1
         )
     assert path == "packed"
     return Sketcher(
-        p, chunk_positions=C, batch=1, use_pallas=True, pallas_interpret=True
+        p, chunk_positions=C, batch=1, packed=True,
     )
 
 
@@ -83,10 +83,9 @@ def test_partial_batch_with_exact_length_row(path):
     k = 17
     p = SketchParams(ksize=k, scaled=SCALED, hv_d=HV_D)
     if path == "runs":
-        sk = Sketcher(p, chunk_positions=C, batch=3, use_pallas=False)
+        sk = Sketcher(p, chunk_positions=C, batch=3, packed=False)
     else:
-        sk = Sketcher(p, chunk_positions=C, batch=3, use_pallas=True,
-                      pallas_interpret=True)
+        sk = Sketcher(p, chunk_positions=C, batch=3, packed=True)
     L_pad = -(-(C + k - 1) // 8) * 8
     rng = np.random.default_rng(11)
     g1 = rng.integers(0, 4, size=L_pad, dtype=np.uint8)  # empty run list

@@ -16,6 +16,10 @@ from hypergen_tpu.models.sketcher import Sketcher
 from hypergen_tpu.oracle import pipeline as orp
 from hypergen_tpu.params import SketchParams
 
+# the reference repo's only fixture (reference:test/test.fna), held here so
+# the test needs no checkout of the reference
+REFERENCE_FIXTURE = b">test\nAGCTCTTANNAGCCCNTTacgttacagccctgaaaacttttest.fna\n"
+
 rng = np.random.default_rng(11)
 
 
@@ -66,9 +70,7 @@ class TestSketcherParity:
 
     def test_reference_fixture_sketch(self, tmp_path):
         """reference:test/test.fna end-to-end with scaled=1 (tiny record)."""
-        import shutil
-
-        shutil.copy("/root/reference/test/test.fna", tmp_path / "t.fna")
+        (tmp_path / "t.fna").write_bytes(REFERENCE_FIXTURE)
         params = SketchParams(ksize=21, seed=123, scaled=1, hv_d=1024)
         sk = Sketcher(params, chunk_positions=128)
         fs = sk.sketch_file(tmp_path / "t.fna")

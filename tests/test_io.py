@@ -23,6 +23,10 @@ from hypergen_tpu.io.sketch_db import (
     sketches_to_db,
 )
 
+# the reference repo's only fixture (reference:test/test.fna), held here so
+# the test needs no checkout of the reference
+REFERENCE_FIXTURE = b">test\nAGCTCTTANNAGCCCNTTacgttacagccctgaaaacttttest.fna\n"
+
 rng = np.random.default_rng(3)
 
 
@@ -49,8 +53,10 @@ class TestFastx:
         p.write_bytes(gzip.compress(b">r\nACGT\n"))
         assert read_fasta_records(p) == [(b"r", b"ACGT")]
 
-    def test_reference_fixture(self):
-        recs = read_fasta_records("/root/reference/test/test.fna")
+    def test_reference_fixture(self, tmp_path):
+        p = tmp_path / "test.fna"
+        p.write_bytes(REFERENCE_FIXTURE)
+        recs = read_fasta_records(p)
         assert len(recs) == 1
         assert recs[0][1].startswith(b"AGCTCTTANN")
 

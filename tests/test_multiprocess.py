@@ -3,8 +3,8 @@
 Exercises the multi-host code path (jax.distributed.initialize, global mesh
 spanning processes, cross-process collectives in the sharded search) that
 the single-process 8-device tests cannot: per-process addressable shards,
-cross-host all_gather over the db axis. This is the CPU stand-in for the
-BASELINE 2-host v5p config.
+cross-host all_gather over the db axis. This is the CPU stand-in for a
+2-host deployment.
 """
 
 import os
@@ -116,7 +116,7 @@ _WORKER_DB = textwrap.dedent(
     from hypergen_tpu.ops.ani import dot_i16_exact
     import jax.numpy as jnp
     dot = np.asarray(dot_i16_exact(
-        jnp.asarray(full.hvs), jnp.asarray(q), use_mxu=False))
+        jnp.asarray(full.hvs), jnp.asarray(q), int8_split=False))
     ref = ani_f32_host(dot, full.norms, qn, 21).T  # [N, M]
     exp_ani = -np.sort(-ref, axis=1)[:, :K]
     assert np.allclose(np.asarray(ani), exp_ani, atol=2e-3), (ani, exp_ani)

@@ -287,8 +287,8 @@ class TestAni:
         q = rng.integers(-3000, 3000, size=(7, 512)).astype(np.int16)
         exp = r.astype(np.int64) @ q.astype(np.int64).T
         exp_wrapped = ((exp + (1 << 31)) % (1 << 32) - (1 << 31)).astype(np.int32)
-        for use_mxu in (False, True):
-            got = np.asarray(dot_i16_exact(jnp.asarray(r), jnp.asarray(q), use_mxu))
+        for int8_split in (False, True):
+            got = np.asarray(dot_i16_exact(jnp.asarray(r), jnp.asarray(q), int8_split))
             np.testing.assert_array_equal(got, exp_wrapped)
 
     def test_dot_exact_extreme_values(self):
@@ -297,8 +297,8 @@ class TestAni:
         q = np.array([[-32768, 32767, -1, 256, 0] * 128], dtype=np.int16)
         exp = int((r.astype(np.int64) @ q.astype(np.int64).T)[0, 0])
         exp = ((exp + (1 << 31)) % (1 << 32)) - (1 << 31)
-        for use_mxu in (False, True):
-            got = int(dot_i16_exact(jnp.asarray(r), jnp.asarray(q), use_mxu)[0, 0])
+        for int8_split in (False, True):
+            got = int(dot_i16_exact(jnp.asarray(r), jnp.asarray(q), int8_split)[0, 0])
             assert got == exp
 
     def test_dot_small_split_exact(self):
@@ -314,7 +314,7 @@ class TestAni:
         exp = r.astype(np.int64) @ q.astype(np.int64).T
         exp = ((exp + (1 << 31)) % (1 << 32) - (1 << 31)).astype(np.int32)
         got = np.asarray(
-            dot_i16_exact(jnp.asarray(r), jnp.asarray(q), use_mxu="small")
+            dot_i16_exact(jnp.asarray(r), jnp.asarray(q), int8_split="small")
         )
         np.testing.assert_array_equal(got, exp)
 
@@ -336,7 +336,7 @@ class TestAni:
         from hypergen_tpu.models.comparator import Comparator
         from hypergen_tpu.ops.ani import SMALL_SPLIT_MAX
 
-        comp = Comparator(21, use_mxu=True)
+        comp = Comparator(21, int8_split=True)
         ok = np.full((2, 256), SMALL_SPLIT_MAX, dtype=np.int16)
         too_big = ok.copy()
         too_big[1, 3] = SMALL_SPLIT_MAX + 1
@@ -345,7 +345,7 @@ class TestAni:
         assert comp.dot_mode(ok, ok) == "small"
         assert comp.dot_mode(ok, too_big) is True
         assert comp.dot_mode(neg_edge, ok) is True
-        comp_cpu = Comparator(21, use_mxu=False)
+        comp_cpu = Comparator(21, int8_split=False)
         assert comp_cpu.dot_mode(ok, ok) is False
 
     def test_ani_matrix_vs_oracle(self):
@@ -393,7 +393,7 @@ class TestThresholdedDist:
             q.norms[:10] = np.sum(
                 q.hvs[:10].astype(np.int64) ** 2, axis=1
             ).astype(np.int32)
-        comp = Comparator(ksize=21, tile_m=16, tile_n=16, use_mxu=False)
+        comp = Comparator(ksize=21, tile_m=16, tile_n=16, int8_split=False)
         for th in (60.0, 85.0, 95.0):
             ri_d, qi_d, ani_d = comp.ani_pairs(ref, q, symmetric=symmetric)
             ri_t, qi_t, ani_t, n_total = comp.ani_pairs_thresholded(
@@ -409,15 +409,15 @@ class TestThresholdedDist:
             assert tsv_d == tsv_t
 
     def test_mxu_presplit_preload_matches_cpu_path(self):
-        """MXU-mode comparator (preloaded tiles stored as presplit int8
+        """int8-split comparator (preloaded tiles stored as presplit int8
         planes) produces identical pairs to the direct int32 CPU path —
         covers the tuple-block branches of thresholded AND streamed."""
         from hypergen_tpu.models.comparator import Comparator
 
         rng = np.random.default_rng(35)
         ref = self._db(rng, 37)
-        cm = Comparator(ksize=21, tile_m=16, tile_n=16, use_mxu=True)
-        cc = Comparator(ksize=21, tile_m=16, tile_n=16, use_mxu=False)
+        cm = Comparator(ksize=21, tile_m=16, tile_n=16, int8_split=True)
+        cc = Comparator(ksize=21, tile_m=16, tile_n=16, int8_split=False)
         th = 60.0
         for fn in ("ani_pairs_thresholded", "ani_pairs_streamed"):
             rm, qm, am, nm = getattr(cm, fn)(ref, ref, True, th)
@@ -435,7 +435,7 @@ class TestThresholdedDist:
         rng = np.random.default_rng(33)
         ref = self._db(rng, 37)
         q = ref if symmetric else self._db(rng, 23)
-        comp = Comparator(ksize=21, tile_m=16, tile_n=16, use_mxu=False)
+        comp = Comparator(ksize=21, tile_m=16, tile_n=16, int8_split=False)
         for th in (0.0, 60.0, 85.0):
             ri_d, qi_d, ani_d = comp.ani_pairs(ref, q, symmetric=symmetric)
             ri_s, qi_s, ani_s, n_total = comp.ani_pairs_streamed(
@@ -458,7 +458,7 @@ class TestThresholdedDist:
         rng = np.random.default_rng(34)
         db = self._db(rng, 37)
         th = 60.0
-        comp = Comparator(ksize=21, tile_m=16, tile_n=16, use_mxu=False)
+        comp = Comparator(ksize=21, tile_m=16, tile_n=16, int8_split=False)
         fn = (
             comp.ani_pairs_thresholded if path == "thresholded"
             else comp.ani_pairs_streamed
@@ -493,7 +493,7 @@ class TestThresholdedDist:
 
         rng = np.random.default_rng(5)
         ref = self._db(rng, 40)
-        comp = Comparator(ksize=21, tile_m=64, tile_n=64, use_mxu=False)
+        comp = Comparator(ksize=21, tile_m=64, tile_n=64, int8_split=False)
         comp.compact_cap0 = 64  # force the overflow-retry loop
         # threshold 50 keeps ~everything among self-similar rows
         db2 = self._db(rng, 40)

@@ -128,7 +128,7 @@ def test_local_topk_search_tiled():
     q = db[rng.integers(0, M, size=N)].copy()
     qn = np.sum(q.astype(np.int64) ** 2, axis=1).astype(np.int32)
     ani, idx, _dots = local_topk_search_tiled(
-        db, dbn, q, qn, ksize=21, k_top=K, tile_m=128, use_mxu=False
+        db, dbn, q, qn, ksize=21, k_top=K, tile_m=128, int8_split=False
     )
     exp_ani, _ = _reference_topk(db, dbn, q, qn, 21, K)
     np.testing.assert_allclose(ani, exp_ani, atol=2e-3)
@@ -151,10 +151,10 @@ def test_sharded_topk_search_tiled_matches_one_shot():
     qn = np.sum(q.astype(np.int64) ** 2, axis=1).astype(np.int32)
     mesh = make_mesh(4, 2)
     got = sharded_topk_search_tiled(
-        mesh, db, dbn, q, qn, ksize=21, k_top=K, tile_m=100, use_mxu=False
+        mesh, db, dbn, q, qn, ksize=21, k_top=K, tile_m=100, int8_split=False
     )
     want = sharded_topk_search(
-        mesh, db, dbn, q, qn, ksize=21, k_top=K, use_mxu=False
+        mesh, db, dbn, q, qn, ksize=21, k_top=K, int8_split=False
     )
     np.testing.assert_allclose(got[0], want[0], atol=2e-3)
     np.testing.assert_array_equal(got[2], want[2])  # exact dots identical
@@ -267,19 +267,17 @@ class TestSeqPar:
             assert a.hv_norm_2 == b.hv_norm_2
 
     def test_pallas_kernel_per_shard(self):
-        """seqpar with the fused rolling kernel per shard (interpret mode)
-        == the XLA-path seqpar, bit for bit."""
+        """seqpar (XLA hash path per shard) == the single-device fused
+        packed kernel (interpret mode), bit for bit."""
+        from hypergen_tpu.models.sketcher import Sketcher
         from hypergen_tpu.parallel.seqpar import sketch_codes_seqpar
 
         codes = self._codes(9_000, seed=5)
         p = self._params()
-        ref = sketch_codes_seqpar(
-            codes, p, chunk_positions=512, use_pallas=False
-        )
-        got = sketch_codes_seqpar(
-            codes, p, chunk_positions=512, use_pallas=True,
-            pallas_interpret=True,
-        )
+        ref = sketch_codes_seqpar(codes, p, chunk_positions=512)
+        sk = Sketcher(p, chunk_positions=2048, packed=True)
+        assert sk.packed_mode
+        got = sk.sketch_codes(codes)
         np.testing.assert_array_equal(got["hv"], ref["hv"])
         assert got["n_hashes"] == ref["n_hashes"]
 
@@ -309,7 +307,7 @@ def test_sharded_topk_search_tiled():
     qn = np.sum(q.astype(np.int64) ** 2, axis=1).astype(np.int32)
     mesh = make_mesh(4, 2)
     ani, idx, _dots = sharded_topk_search_tiled(
-        mesh, db, dbn, q, qn, ksize=21, k_top=K, tile_m=128, use_mxu=False,
+        mesh, db, dbn, q, qn, ksize=21, k_top=K, tile_m=128, int8_split=False,
     )
     exp_ani, _ = _reference_topk(db, dbn, q, qn, 21, K)
     np.testing.assert_allclose(ani, exp_ani, atol=2e-3)
@@ -350,7 +348,7 @@ def test_gtdb_scale_sharded_search():
     cand = idx[i]
     dot = np.asarray(
         dot_i16_exact(jnp.asarray(db[cand]), jnp.asarray(q[i : i + 1]),
-                      use_mxu=False)
+                      int8_split=False)
     )
     exp = ani_f32_host(dot, dbn[cand], qn[i : i + 1], 21)[:, 0]
     np.testing.assert_allclose(ani[i], exp, atol=2e-3)

@@ -97,7 +97,7 @@ class TestStepVariantParity:
         kw = dict(
             ksize=k, seed=p.seed, threshold=fracminhash_threshold(p.scaled),
             hv_d=p.hv_d, batch=batch, n_chunks=n_chunks, chunk_positions=C,
-            chunk_cap=1024, enc_cap=1024, extract_block=0, use_pallas=False,
+            chunk_cap=1024, enc_cap=1024, extract_block=0,
         )
         step_mask = make_sketch_step(validity="mask", **kw)
         step_runs = make_sketch_step(validity="runs", **kw)

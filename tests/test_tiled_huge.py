@@ -1,6 +1,6 @@
 """Single-device huge-genome tiling (r4 verdict item 4).
 
-On one chip a genome at/above seqpar_min_chunks must NOT compile a giant
+On one device a genome at/above seqpar_min_chunks must NOT compile a giant
 one-shot bucket: Sketcher.sketch_packed_tiled streams fixed-shape tiles
 through the probe="hashes" step, unions the per-tile survivor sets on the
 host, and encodes the global set once. Dedup composes as set union and the
@@ -77,17 +77,16 @@ def test_tiled_duplicate_kmers_across_tiles():
 
 
 def test_tiled_packed_input_format_interpret():
-    # the TPU production input format: fused packed Pallas step (interpret
+    # the GPU production input format: fused packed Pallas step (interpret
     # mode) through the probe="hashes" branch
     rng = np.random.default_rng(24)
     p = SketchParams(hv_d=HV_D, scaled=SCALED)
     codes = _genome(rng, 20_000, n_runs=2)
     ref = Sketcher(
-        p, chunk_positions=2048, batch=2, use_pallas=False
+        p, chunk_positions=2048, batch=2, packed=False
     ).sketch_codes(codes)
     sk = Sketcher(
-        p, chunk_positions=2048, batch=2, use_pallas=True,
-        pallas_interpret=True,
+        p, chunk_positions=2048, batch=2, packed=True,
     )
     assert sk.packed_mode
     got = sk.sketch_packed_tiled(packed_from_codes(codes), tile_chunks=2)
